@@ -7,12 +7,13 @@ run unmodified against this engine.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
 from geneevolve_tpu.config import ConfigError, parse_args, print_config
 
-_HELP = """geneevolve-tpu — TPU-native forward-time whole-genome simulator
+_HELP = """geneevolve-tpu — forward-time whole-genome simulator in JAX
 
  A fast and memory efficient forward-time simulator of whole-genome data:
  complex evolutionary scenarios with individual-level phenotypes and
@@ -82,7 +83,7 @@ _HELP = """geneevolve-tpu — TPU-native forward-time whole-genome simulator
         --seed                   : [0]    ->  any positive number (0 = clock)
         --debug                  : [Off]
 
- --------- TPU-native extensions (not in the reference)
+ --------- Extensions (not in the reference)
         --mesh auto|ind=N[,loci=M] : shard the run over a device mesh
           (outputs bit-identical to the single-device run)
         --backend segment|dense  : genome engine (dense = materialized
@@ -90,33 +91,34 @@ _HELP = """geneevolve-tpu — TPU-native forward-time whole-genome simulator
         --device_mating          : mate pairing on device (XLA collectives)
         --checkpoint_every <n> / --resume <prefix>.ckpt.npz
         --profile <dir>          : jax.profiler trace of the main loop
-        --stage_sync             : device fence after each stage so the
-          per-stage timing table is device-true (profiling only)
+        --stage_sync             : wait for the device after each stage so
+          the per-stage timing table is device-true (profiling only)
 """
 
 
-def _enable_compilation_cache() -> None:
-    """Persist XLA compilations across runs (~20 s of warmup on the Example
-    scenarios is compile time; a warm cache brings total wall time to the
-    reference binary's). Opt out with GE_NO_COMPILE_CACHE=1."""
-    import os
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+def compilation_cache_dir() -> str:
+    """Where XLA compilations persist across runs: `JAX_COMPILATION_CACHE_DIR`
+    when set, else the fixed `<checkout>/.jax_cache` (a fixed path, so a
+    later process finds what an earlier one compiled)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        CHECKOUT, ".jax_cache"
+    )
+
+
+def _enable_compilation_cache() -> None:
+    """Persist XLA compilations across runs; opt out with
+    GE_NO_COMPILE_CACHE=1. With `JAX_COMPILATION_CACHE_DIR` set, JAX reads
+    it itself and nothing is set here."""
     if os.environ.get("GE_NO_COMPILE_CACHE"):
         return
-    try:
-        import jax
+    import jax
 
-        cache = os.environ.get(
-            "GE_COMPILE_CACHE",
-            os.path.join(
-                os.path.expanduser("~"), ".cache", "geneevolve_tpu", "xla"
-            ),
-        )
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # cache is an optimization, never a requirement
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", compilation_cache_dir())
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 def main(argv=None) -> int:

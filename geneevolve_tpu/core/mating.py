@@ -2,7 +2,7 @@
 
 Pairing is O(n log n) scalar work over at most a few million mating values
 (~MBs), so it runs on host while the genome work runs on device — the
-TPU-side cost is the parent-row gather that follows.
+device-side cost is the parent-row gather that follows.
 
 Semantics follow the reference:
 - `random_mate` (`/root/reference/src/Simulation.cpp:2090-2157`): selection

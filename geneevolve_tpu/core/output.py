@@ -14,6 +14,8 @@ Output naming matches the reference:
 
 from __future__ import annotations
 
+import os
+import threading
 from functools import partial
 from typing import List
 
@@ -247,48 +249,134 @@ def _legend_al1(leg):
     return leg.alt if isinstance(leg, vcf_io.VcfData) else leg.al1
 
 
+def _ascii_ints(x: np.ndarray):
+    """Decimal ASCII of non-negative ints: a right-aligned (N, D) uint8
+    digit matrix and the (N, D) mask of each value's significant digits."""
+    x = np.asarray(x, dtype=np.int64).ravel()
+    D = len(str(int(x.max()))) if x.size else 1
+    digits = np.empty((x.size, D), dtype=np.uint8)
+    v = x.copy()
+    for j in range(D - 1, -1, -1):
+        digits[:, j] = v % 10 + ord("0")
+        v //= 10
+    n_dig = np.ones(x.size, dtype=np.int64)
+    for k in range(1, D):
+        n_dig += x >= 10**k
+    return digits, np.arange(D)[None, :] >= (D - n_dig)[:, None]
+
+
+def _ascii_table(labels) -> tuple:
+    """Left-aligned (H, L) uint8 matrix of byte strings and their lengths."""
+    enc = [str(t).encode() for t in labels]
+    L = max((len(e) for e in enc), default=1)
+    mat = np.zeros((len(enc), L), dtype=np.uint8)
+    for i, e in enumerate(enc):
+        mat[i, : len(e)] = np.frombuffer(e, dtype=np.uint8)
+    return mat, np.array([len(e) for e in enc], dtype=np.int64)
+
+
+def _join_lines(fields) -> bytes:
+    """Space-separated, newline-terminated text lines from per-field
+    (N, w) byte matrices and masks of the bytes that belong to the field."""
+    n = fields[0][0].shape[0]
+    mats, masks = [], []
+    for k, (mat, mask) in enumerate(fields):
+        sep = np.full((n, 1), ord(" ") if k < len(fields) - 1 else ord("\n"),
+                      dtype=np.uint8)
+        mats += [mat, sep]
+        masks += [mask, np.ones((n, 1), dtype=bool)]
+    return np.concatenate(mats, axis=1)[np.concatenate(masks, axis=1)].tobytes()
+
+
+def _hap_labels(sim):
+    """Per global founder hap: its 1-based index within its population,
+    `gen0_indv` label (`<sample id>.<1|2>`) and 1-based root population."""
+    local, labels, root = [], [], []
+    for p in sim.pops:
+        for h in range(2 * p.n_founders):
+            local.append(h + 1)
+            labels.append(f"{p.indv_ids[h // 2]}.{h % 2 + 1}")
+            root.append(p.index + 1)
+    return np.array(local), _ascii_table(labels), np.array(root)
+
+
 def write_interval(sim, gen: int) -> None:
     """IBD ground-truth dump, schema per `ras_write_hap_to_interval_format`
     (`Simulation.cpp:1582-1639`): `h_ID chr hap st en hap_index gen0_indv
     root_pop`, 1-based IDs, gen0_indv = founder sample id + `.1/.2`.
+    Rows are formatted as whole numpy byte matrices, a block of
+    individuals at a time (a 300k-individual generation has ~10^8 rows).
 
     When `--out_interval` is set the engine runs meiosis with
     `merge_ibd=False` (`core/segments.py:meiose_one`), so the ledger keeps
     every crossover-split part boundary exactly like the reference's
     `recombine` (`Simulation.cpp:2903-2958`) — adjacent same-founder rows
     encode recombination-event positions and are NOT merged."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from geneevolve_tpu.parallel import multihost
 
     suffix = multihost.host_suffix()
-    offsets = np.array([p.hap_offset for p in sim.pops])
-    indv_ids = [p.indv_ids for p in sim.pops]
+    labels = _hap_labels(sim)
+    jobs = []
     for p in sim.pops:
-        st = p.state
-        rows = _host_rows(sim, st)
-        row_iter = range(st.n) if rows is None else rows
+        rows = _host_rows(sim, p.state)
+        rows = np.arange(p.state.n) if rows is None else np.asarray(rows)
         for ic, chrom in enumerate(sim.chrs):
             path = (
                 f"{sim.cfg.prefix}.pop{p.index + 1}.gen{gen}.chr{chrom}"
                 f"{suffix}.int"
             )
-            seg_st = np.asarray(st.seg_st[ic])  # (n, 2, S)
-            seg_hap = np.asarray(st.seg_hap[ic])
-            chr_end = p.maps[ic].chr_end
-            with open(path, "w") as f:
-                f.write("h_ID chr hap st en hap_index gen0_indv root_pop\n")
-                big = int(segments._big())
-                for i in row_iter:
-                    for h in range(2):
-                        sts = seg_st[i, h]
-                        valid = sts < big
-                        k = int(valid.sum())
-                        ens = np.append(sts[1:k], chr_end)
-                        for s in range(k):
-                            ghap = int(seg_hap[i, h, s])
-                            rp = int(np.searchsorted(offsets, ghap, side="right") - 1)
-                            local = ghap - offsets[rp]
-                            indv = indv_ids[rp][local // 2]
-                            f.write(
-                                f"{st.ids[i] + 1} {chrom} {h} {sts[s]} {ens[s]} "
-                                f"{local + 1} {indv}.{local % 2 + 1} {rp + 1}\n"
-                            )
+            jobs.append((path, p, ic, chrom, rows))
+    # one file per (population, chromosome); numpy releases the GIL on the
+    # large array operations, so the files format in parallel
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        for fut in [ex.submit(_write_int_file, *j, labels) for j in jobs]:
+            fut.result()
+
+
+def _write_int_file(path, p, ic, chrom, rows, labels) -> None:
+    """One population's `.int` rows for chromosome `chrom`."""
+    local, (lab_mat, lab_len), root = labels
+    big = int(segments._big())
+    st = p.state
+    chr_end = p.maps[ic].chr_end
+    chrom_b = np.frombuffer(str(chrom).encode(), dtype=np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"h_ID chr hap st en hap_index gen0_indv root_pop\n")
+        for lo in range(0, len(rows), _INT_ROWS):
+            blk = rows[lo : lo + _INT_ROWS]
+            with _DEVICE_READS:
+                sts = np.asarray(st.seg_st[ic, blk]).astype(np.int64)
+                haps = np.asarray(st.seg_hap[ic, blk]).astype(np.int64)
+            k = (sts < big).sum(axis=-1, keepdims=True)
+            slot = np.arange(sts.shape[-1])
+            keep = slot < k  # (b, 2, S): the first k parts of each chromatid
+            nxt = np.concatenate(
+                [sts[..., 1:], np.zeros_like(sts[..., :1])], axis=-1
+            )
+            ens = np.where(slot + 1 < k, nxt, chr_end)
+            hid = np.broadcast_to((st.ids[blk] + 1)[:, None, None], sts.shape)
+            hap = np.broadcast_to(np.arange(2)[None, :, None], sts.shape)
+            g = haps[keep]
+            n_lines = len(g)
+            f.write(_join_lines([
+                _ascii_ints(hid[keep]),
+                (np.broadcast_to(chrom_b, (n_lines, len(chrom_b))),
+                 np.ones((n_lines, len(chrom_b)), dtype=bool)),
+                _ascii_ints(hap[keep]),
+                _ascii_ints(sts[keep]),
+                _ascii_ints(ens[keep]),
+                _ascii_ints(local[g]),
+                (lab_mat[g],
+                 np.arange(lab_mat.shape[1])[None, :] < lab_len[g][:, None]),
+                _ascii_ints(root[g]),
+            ]))
+
+
+_INT_ROWS = 1 << 15  # individuals per formatted block of .int rows
+# The writer threads read the ledger one at a time: on a sharded ledger
+# each read is a program with collectives on every device, and programs
+# launched from two threads at once can reach the devices in different
+# orders, which deadlocks the collectives on GPUs.
+_DEVICE_READS = threading.Lock()

@@ -1,4 +1,4 @@
-"""Phenotype construction: A/D from CV genotypes (device, MXU-friendly),
+"""Phenotype construction: A/D from CV genotypes (device, elementwise sums),
 scaling / E / F / C / P assembly, mating & selection values, selection
 functions, and the cross-population gamma effect.
 

@@ -2,7 +2,7 @@
 
 Population haplotypes live as a sharded `(2n, m)` uint8 array; each
 generation is a crossover-phase select over parent rows plus a mutation XOR
-and an on-MXU phenotype matmul. This is the HBM-bandwidth-bound path the
+and a phenotype matrix product. This is the HBM-bandwidth-bound path the
 benchmark measures; the segment engine (`core/`) is the m-independent parity
 path.
 """

@@ -6,8 +6,8 @@ segment engine — assortative/random mating with selection gates
 allele frequencies (`:2624-2749`), E/F/C/P assembly and gen-0 scaling
 (`:3075-3206`), MV/SV + selection functions (`:3300-3428`), info/summary
 files — but keeps the genome materialized as bit-packed chromatid planes
-(`dense/packed.py`), so each generation is one fused meiosis pass (the
-Pallas kernel on TPU) instead of a segment-ledger merge. This is the
+(`dense/packed.py`), so each generation is one fused meiosis pass instead
+of a segment-ledger merge. This is the
 flagship-throughput path applied to real scenarios: genotype output needs
 no painting (the genome IS the genotypes), and per-generation cost is the
 benchmarked ind*loci*gens/s rate.
@@ -34,6 +34,7 @@ the same observable distribution.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Optional
 
 import jax
@@ -98,6 +99,9 @@ class DenseSimulation(Simulation):
         # so the mesh is held here and applied by _put_plane instead
         super().__init__(cfg, verbose=verbose, mesh=None)
         self.mesh = None
+        # the meiosis kernel on unsharded runs (it has no partitioning
+        # rule); sharded runs take the XLA formulation
+        self.kernels = mesh is None
         if mesh is not None:
             if "ind" not in mesh.axis_names:
                 raise SimulationError("mesh must have an 'ind' axis")
@@ -173,9 +177,9 @@ class DenseSimulation(Simulation):
                         f"{self.chrs[ic]} differs between populations 1 "
                         f"and {p.index + 1}"
                     )
-        unit = 4096 if jax.default_backend() == "tpu" else 32
+        # chromosomes padded to whole 32-locus words
         m_max = max(max(mr) for _, _, mr in raw.values())
-        self._chr_len = ((m_max + unit - 1) // unit) * unit
+        self._chr_len = -(-m_max // 32) * 32
         for p in self.pops:
             self._dp[p.index] = self._load_panel(p, *raw[p.index])
 
@@ -256,8 +260,6 @@ class DenseSimulation(Simulation):
                                 + 6 * np.sqrt(max(mut_lambda, 0.25)))
                 ),
                 ncv=0,
-                use_pallas=jax.default_backend() == "tpu"
-                and chr_len % (32 * 128) == 0,
             ),
         )
 
@@ -306,37 +308,12 @@ class DenseSimulation(Simulation):
             np.pad(plan.child_mother, (0, n_pad - n_child)), dtype=jnp.int32
         ))
         key = stage_key(self.key, gen, Stage.CROSSOVER, p.index)
-        k_pat, k_mat, k_mu1, k_mu2 = jax.random.split(key, 4)
-        xo_p, st_p, _ = _sample_gamete_plan(
-            k_pat, cfg.as_dense(), n_pad, dp.xo_cdf
-        )
-        xo_m, st_m, _ = _sample_gamete_plan(
-            k_mat, cfg.as_dense(), n_pad, dp.xo_cdf
-        )
-        mu = None
-        if dp.mut_cdf is not None:
-            mu = jnp.stack(
-                [
-                    _mutation_cols(k_mu1, n_pad, cfg, dp.mut_cdf),
-                    _mutation_cols(k_mu2, n_pad, cfg, dp.mut_cdf),
-                ],
-                axis=1,
-            )
-        child = make_reproduce(cfg)(
-            st.hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu
-        )
+        gplan = _gamete_plans(key, dp.xo_cdf, dp.mut_cdf, cfg)
+        child = _reproduce_planes(st.hap, fathers, mothers, *gplan, cfg=cfg,
+                                  kernels=self.kernels)
         cv = [
-            jnp.stack(
-                [
-                    cv_child(st.cv[j], fathers, xo_p, st_p,
-                             None if mu is None else mu[:, 0],
-                             dp.cv_cols[j], self._chr_len),
-                    cv_child(st.cv[j], mothers, xo_m, st_m,
-                             None if mu is None else mu[:, 1],
-                             dp.cv_cols[j], self._chr_len),
-                ],
-                axis=1,
-            )
+            _child_cv(st.cv[j], fathers, mothers, *gplan, dp.cv_cols[j],
+                      chr_len=self._chr_len)
             for j in range(self.n_pheno)
         ]
         return DensePopState(
@@ -503,6 +480,59 @@ def _pad_tail(x: np.ndarray, length: int, value: float) -> np.ndarray:
     if len(x) == length:
         return x
     return np.concatenate([x, np.full(length - len(x), value)])
+
+
+@partial(jax.jit, static_argnames=("cfg",))
+def _gamete_plans(key, xo_cdf, mut_cdf, cfg: PackedConfig):
+    """Both gametes' crossover plans and de novo mutation columns for
+    `cfg.n` children: (xo_p, st_p, xo_m, st_m, mu), mu None without a
+    mutation map."""
+    k_pat, k_mat, k_mu1, k_mu2 = jax.random.split(key, 4)
+    xo_p, st_p, _ = _sample_gamete_plan(k_pat, cfg.as_dense(), cfg.n, xo_cdf)
+    xo_m, st_m, _ = _sample_gamete_plan(k_mat, cfg.as_dense(), cfg.n, xo_cdf)
+    mu = None
+    if mut_cdf is not None:
+        mu = jnp.stack(
+            [
+                _mutation_cols(k_mu1, cfg.n, cfg, mut_cdf),
+                _mutation_cols(k_mu2, cfg.n, cfg, mut_cdf),
+            ],
+            axis=1,
+        )
+    return xo_p, st_p, xo_m, st_m, mu
+
+
+@partial(jax.jit, static_argnames=("cfg", "kernels"))
+def _reproduce_planes(hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
+                      cfg: PackedConfig, kernels: bool = False):
+    """(n, 2, mw) child planes: one fused word-mask meiosis pass. With
+    `kernels` (unsharded runs), the CUDA lowering runs the Triton kernel
+    (`ops/meiosis_triton.py`, bit-equal to the XLA formulation)."""
+    from geneevolve_tpu.ops.meiosis_triton import meiose_packed_triton
+
+    args = (hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu)
+    xla = make_reproduce(cfg)
+    if not kernels:
+        return xla(*args)
+    return jax.lax.platform_dependent(
+        *args, default=xla,
+        cuda=partial(meiose_packed_triton, chr_len=cfg.chr_len),
+    )
+
+
+@partial(jax.jit, static_argnames=("chr_len",))
+def _child_cv(cv, fathers, mothers, xo_p, st_p, xo_m, st_m, mu, cv_cols,
+              chr_len: int):
+    """(n, 2, ncv) child CV alleles under the same meiosis law."""
+    return jnp.stack(
+        [
+            cv_child(cv, fathers, xo_p, st_p,
+                     None if mu is None else mu[:, 0], cv_cols, chr_len),
+            cv_child(cv, mothers, xo_m, st_m,
+                     None if mu is None else mu[:, 1], cv_cols, chr_len),
+        ],
+        axis=1,
+    )
 
 
 def _mutation_cols(key, n: int, cfg: PackedConfig, cdf: jax.Array):

@@ -5,9 +5,7 @@ planes pack losslessly into one `(n, 2, mw)` uint32 array with `mw = m / 32`
 (locus l lives in word `l >> 5`, bit `l & 31`, LSB-first; plane 0/1 =
 chromatid A/B). Every HBM pass shrinks 32x against the byte engine
 (`dense/step.py`) per element — 8x in bytes — and the combined plane layout
-lets the Pallas kernel move a whole parent (both chromatids) in one DMA
-descriptor, which is what the DMA-issue-rate-bound gather needs (see
-DESIGN.md and `ops/meiosis_packed_pallas.py`).
+keeps a parent's two chromatids in one contiguous row.
 
 The crossover phase is a *word mask*: parity-of-count is XOR of
 per-crossover indicators, and the indicator of "locus >= xo" restricted to
@@ -69,11 +67,9 @@ class PackedConfig:
     mut_cap: int = 8
     ncv: int = 128
     selection: bool = False
-    use_pallas: bool = False
     couples: bool = False  # couple-structured mating: n//2 couples,
     # multinomial children SORTED by couple (the reference's household law,
-    # `Simulation.cpp:2329-2355`); sibling grouping lets the Pallas kernel
-    # reuse parent-plane DMAs (block-major grid order)
+    # `Simulation.cpp:2329-2355`)
 
     @property
     def chr_len(self) -> int:
@@ -199,18 +195,17 @@ def apply_mutations_packed(child: jax.Array, pos: jax.Array) -> jax.Array:
     packed rows (n, mw), as a full-plane XOR-mask pass. Repeated draws flip
     twice and cancel (per-occurrence semantics, `Simulation.cpp:1218-1222`).
 
-    Measured note: sparse gather/scatter formulations are *slower* on TPU —
-    XLA lowers scatter near-serially (~13 ms for 32k indices on v5e) — while
-    the mask construction fuses into one streaming pass. On the Pallas path
-    mutations are fused into the meiosis kernel instead (zero extra HBM
-    traffic)."""
+    The mask construction fuses into one streaming pass with no scatter."""
     n, mw = child.shape
-    cols = jnp.arange(mw, dtype=jnp.int32)[None, :]
-    hit = jnp.zeros((n, mw), dtype=jnp.uint32)
-    for k in range(pos.shape[1]):
-        p = pos[:, k : k + 1]
-        bit = jnp.left_shift(jnp.uint32(1), (p & 31).astype(jnp.uint32))
-        hit = hit ^ jnp.where(cols == (p >> 5), bit, jnp.uint32(0))
+    cols = jnp.arange(mw, dtype=jnp.int32)[None, None, :]
+    p = pos[:, :, None]
+    bit = jnp.left_shift(jnp.uint32(1), (p & 31).astype(jnp.uint32))
+    # one XOR-reduction over the draws, so the (n, Km, mw) selects fuse
+    # into a single pass instead of Km materialized (n, mw) masks
+    hit = jax.lax.reduce(
+        jnp.where(cols == (p >> 5), bit, jnp.uint32(0)),
+        np.uint32(0), jax.lax.bitwise_xor, (1,),
+    )
     return child ^ hit
 
 
@@ -239,9 +234,9 @@ def mutation_positions(key, n: int, cfg: PackedConfig):
 def popcount_dosage(packed: jax.Array, idx: jax.Array) -> jax.Array:
     """Extract 0/1 alleles at loci `idx` from packed word rows (..., mw).
 
-    NOTE: this is a scattered single-word column gather — ~16 ms/gen at
-    n=8k x 1Mi loci on v5e, latency- not bandwidth-bound. The evolution
-    loop therefore does NOT use it per generation: it maintains the small
+    NOTE: this is a scattered single-word column gather, latency- not
+    bandwidth-bound. The evolution loop therefore does NOT use it per
+    generation: it maintains the small
     dense CV matrix incrementally (`cv_child`, mirroring the reference's
     own design of keeping CV genotypes resident, `Simulation.cpp:2624-2749`
     / SURVEY §3.4) and uses this only at init and as a test oracle."""
@@ -263,7 +258,7 @@ def cv_child(
     """(n, ncv) uint8 gamete CV alleles — the same meiosis law as the packed
     word masks (`phase_word_masks`: phase(l) = (start + #{xo <= l}) & 1,
     mutations flip per occurrence), restricted to the CV columns. O(n*ncv*K)
-    VPU work on bytes; no genome-plane traffic."""
+    vector work on bytes; no genome-plane traffic."""
     c_of = (cv_idx // chr_len).astype(jnp.int32)  # (ncv,) chromosome of CV
     # crossovers of the CV's own chromosome, counted at or below the CV locus
     xo_cv = jnp.take_along_axis(
@@ -290,39 +285,33 @@ def phenotype_additive_packed(hap, cv_idx, eff):
     t = (
         popcount_dosage(hap[:, 0], cv_idx) + popcount_dosage(hap[:, 1], cv_idx)
     ).astype(jnp.float32)
+    return centered_dot(t, eff)
+
+
+def centered_dot(t, eff):
+    """(t - 2p) @ eff for (n, ncv) float32 dosages `t`, with p the
+    per-column allele frequency. The product runs at full float32
+    precision: these values rank individuals for selection, and a
+    reduced-precision (TF32) matrix unit would reorder them."""
     p = jnp.mean(t, axis=0) / 2.0
-    return (t - 2.0 * p[None, :]) @ eff
+    return jnp.dot(
+        t - 2.0 * p[None, :], eff, precision=jax.lax.Precision.HIGHEST
+    )
 
 
 def phenotype_from_cv(cv, eff):
     """Breeding values from the resident (n, 2, ncv) CV matrix, with
     per-generation allele-frequency centering (`Simulation.cpp:2647-2711`,
-    additive-only). One (n, ncv) @ (ncv,) on the MXU."""
-    t = (cv[:, 0] + cv[:, 1]).astype(jnp.float32)
-    p = jnp.mean(t, axis=0) / 2.0
-    return (t - 2.0 * p[None, :]) @ eff
-
-
-def pallas_eligible(cfg: PackedConfig) -> bool:
-    return cfg.use_pallas and cfg.chr_len % (32 * 128) == 0
+    additive-only)."""
+    return centered_dot((cv[:, 0] + cv[:, 1]).astype(jnp.float32), eff)
 
 
 def make_reproduce(cfg: PackedConfig):
     """reproduce(hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu) ->
-    (n, 2, mw) child planes, with mutations (mu: (n, 2, Km) loci or None)
-    fused on the Pallas path; the XLA word-mask path stays the oracle."""
-    use_pallas = pallas_eligible(cfg)
-    if use_pallas:
-        from geneevolve_tpu.ops import meiosis_packed_pallas as mpp
+    (n, 2, mw) child planes: word-mask meiosis of both gametes, then the
+    de novo mutation flips (mu: (n, 2, Km) loci or None)."""
 
     def reproduce(hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu=None):
-        if use_pallas:
-            return mpp.meiose_packed_pallas(
-                hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
-                n_chr=cfg.n_chr, chr_len=cfg.chr_len,
-                # siblings adjacent -> block-major grid reuses parent DMAs
-                child_major=not cfg.couples,
-            )
         childA = meiose_packed_xla(hap, fathers, xo_p, st_p, cfg)
         childB = meiose_packed_xla(hap, mothers, xo_m, st_m, cfg)
         if mu is not None:

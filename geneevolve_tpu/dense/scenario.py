@@ -4,7 +4,7 @@ founder panel with a *real* recombination map.
 This is the mode to use when every generation's genotypes are consumed
 (GWAS-simulation pipelines, method benchmarking): the whole panel lives
 on device as two packed chromatid planes, each generation is one fused
-Pallas pass, and any generation can be written back out as .hap files.
+meiosis pass, and any generation can be written back out as .hap files.
 The reference has no equivalent — its interval engine defers genotype
 materialization to output time (`/root/reference/src/Simulation.cpp:
 1186-1230`); here materialization *is* the evolution step.
@@ -78,7 +78,7 @@ def load_panel(
 ) -> PanelScenario:
     """Pack a hap/legend/indv founder panel into dense engine state.
 
-    Chromosomes are padded to a common multiple-of-8 column count; padding
+    Chromosomes are padded to a common multiple-of-32 column count; padding
     columns carry zero map mass (never recombine) and are dropped at
     output."""
     addresses = tables.read_hap_address(file_hap_name)
@@ -98,11 +98,9 @@ def load_panel(
         cMs.append(cm)
         m_real.append(panel.shape[1])
 
-    # pad to word multiples; on TPU pad to the Pallas kernel's alignment
-    # (32 loci x 128 lanes) so the fused kernel path is eligible — padding
-    # columns carry zero map mass and are dropped at output
-    unit = 4096 if jax.default_backend() == "tpu" else 32
-    chr_len = ((max(m_real) + unit - 1) // unit) * unit
+    # pad to whole 32-locus words; padding columns carry zero map mass and
+    # are dropped at output
+    chr_len = -(-max(m_real) // 32) * 32
     n0 = panels[0].shape[0] // 2
     m = chr_len * len(chrs)
 
@@ -138,7 +136,6 @@ def load_panel(
         else 4,
         ncv=ncv,
         selection=selection,
-        use_pallas=jax.default_backend() == "tpu",
     )
     key = jax.random.key(seed)
     if n != n0:

@@ -2,27 +2,27 @@
 
 One jitted function advances the whole population one generation:
 
-  1. additive phenotype from CV columns (gather + (n, ncv) reduction on MXU)
+  1. additive phenotype from CV columns (gather + (n, ncv) reduction)
   2. selection-weighted random mating (categorical over parents)
   3. per-(gamete, chromosome) Poisson crossover sampling
   4. meiosis: `childA[c, l] = father_planes[phase(l)][f_c, l]` with
      `phase(l) = (start_hap[chr(l)] + #crossovers <= l in chr) & 1`
-     — two row gathers + a select in the XLA path; the Pallas kernel
-     (`ops/meiosis_pallas.py`) rides the scalar-prefetch pipeline so the
-     gather runs at DMA-copy bandwidth.
+     — two row gathers + a select.
   5. de novo mutation XOR at Poisson-sampled loci.
 
 State layout: the two chromatids of each individual live in two separate
 (n, m) uint8 planes `hapA` (paternally inherited) and `hapB` (maternally
-inherited) rather than an interleaved (2n, m) array. Separate planes keep
-every Pallas load/store at sublane offset 0 (Mosaic has no uint8
-cross-sublane relayout), make the phenotype dosage a plain `A + B`, and
-shard identically over an (ind, loci) mesh.
+inherited) rather than an interleaved (2n, m) array. Separate planes make
+the phenotype dosage a plain `A + B` and shard identically over an
+(ind, loci) mesh.
 
 This materializes genotypes every generation, i.e. it is the reference's
 output-path painting (`/root/reference/src/Simulation.cpp:1186-1230`) fused
-into the evolution loop — the right trade on TPU when genotypes are consumed
-per generation, and the benchmark's ind x loci x gens/s metric.
+into the evolution loop — the right trade when genotypes are consumed per
+generation, and the benchmark's ind x loci x gens/s metric.
+
+This byte engine is the oracle of the bit-packed engine (`dense/packed.py`),
+which the CLI runs.
 
 Loci live in index space: chromosome c covers `[c*chr_len, (c+1)*chr_len)`
 columns; crossover positions are sampled per chromosome with intensity
@@ -34,9 +34,6 @@ positions to be monotone in column index).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
-from typing import Optional, Tuple
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,7 +50,6 @@ class DenseConfig:
     mut_cap: int = 8
     ncv: int = 128
     selection: bool = False  # weight parents by a logistic of phenotype
-    use_pallas: bool = False
 
     @property
     def chr_len(self) -> int:
@@ -135,8 +131,7 @@ def _sample_gamete_plan(key, cfg: DenseConfig, n: int, cdf=None):
     """Per-chromosome crossover columns (n, n_chr, K) — unsorted, pad = m —
     plus per-chr start chromatids (n, n_chr) and the count of Poisson draws
     truncated at the cap K. Parity counting never needs
-    sorted positions, and the per-chromosome layout is what the Pallas
-    kernel's BlockSpec index map slices from SMEM.
+    sorted positions.
 
     With `cdf` (an (m,) monotone array of cumulative Morgans at each
     column), crossover counts are Poisson in each chromosome's map mass and
@@ -207,9 +202,10 @@ def _apply_mutations(key, gametes, cfg: DenseConfig):
 def phenotype_additive(hapA, hapB, cv_idx, eff):
     """Breeding values via the gen-recomputed-frequency alpha model
     (`Simulation.cpp:2647-2711`, additive-only)."""
+    from geneevolve_tpu.dense.packed import centered_dot
+
     t = (hapA[:, cv_idx] + hapB[:, cv_idx]).astype(jnp.float32)  # (n, ncv)
-    p = jnp.mean(t, axis=0) / 2.0
-    return (t - 2.0 * p[None, :]) @ eff  # (n,) on MXU
+    return centered_dot(t, eff)
 
 
 def make_step(cfg: DenseConfig, xo_cdf=None):
@@ -217,14 +213,6 @@ def make_step(cfg: DenseConfig, xo_cdf=None):
 
     xo_cdf: optional (m,) cumulative-Morgans-per-column array for
     map-aware crossover placement (see `_sample_gamete_plan`)."""
-    pair_fn = None
-    if cfg.use_pallas:
-        from geneevolve_tpu.ops import meiosis_pallas as mp
-
-        chr_len = cfg.m // cfg.n_chr
-        if cfg.m % mp.BLOCK_M == 0 and chr_len % mp.BLOCK_M == 0:
-            pair_fn = partial(mp.meiose_planes_pallas, n_chr=cfg.n_chr)
-
     def step(state, key):
         hapA, hapB = state["hapA"], state["hapB"]
         n_par = hapA.shape[0]
@@ -245,13 +233,8 @@ def make_step(cfg: DenseConfig, xo_cdf=None):
 
         xo_p, st_p, clip_p = _sample_gamete_plan(k_pat, cfg, n, xo_cdf)
         xo_m, st_m, clip_m = _sample_gamete_plan(k_mat, cfg, n, xo_cdf)
-        if pair_fn is not None:
-            childA, childB = pair_fn(
-                hapA, hapB, fathers, mothers, xo_p, st_p, xo_m, st_m
-            )
-        else:
-            childA = _meiose_xla(hapA, hapB, fathers, xo_p, st_p, cfg)
-            childB = _meiose_xla(hapA, hapB, mothers, xo_m, st_m, cfg)
+        childA = _meiose_xla(hapA, hapB, fathers, xo_p, st_p, cfg)
+        childB = _meiose_xla(hapA, hapB, mothers, xo_m, st_m, cfg)
         childA, clip_a = _apply_mutations(k_mu1, childA, cfg)
         childB, clip_b = _apply_mutations(k_mu2, childB, cfg)
         return {

@@ -1,7 +1,7 @@
 """Native (C++) host-side codecs, built on demand with the system toolchain.
 
 The reference's I/O layer is C++ (libStatGen + `src/format_*.cpp`); this
-package is its TPU-framework counterpart. `load()` compiles
+package is its counterpart here. `load()` compiles
 `codecs.cpp` into a shared library the first time (cached next to the
 source, keyed by source mtime) and exposes it through ctypes. Set
 `GE_NO_NATIVE=1` to force the pure-Python fallbacks in `io/`.

@@ -1,8 +1,8 @@
 // Native host-side text codecs for the hot I/O paths.
 //
 // The reference implements its entire I/O layer in C++ (libStatGen's VCF
-// classes plus src/format_{hap,plink,vcf}.cpp); this library is the
-// TPU-framework equivalent: the O(n*m) text<->matrix conversions run here at
+// classes plus src/format_{hap,plink,vcf}.cpp); this library is this
+// package's equivalent: the O(n*m) text<->matrix conversions run here at
 // memory speed while Python keeps the (cheap) per-file orchestration.
 //
 // Exposed via a C ABI for ctypes (no pybind11 in the image).

@@ -1,4 +1,4 @@
-"""Device-mesh sharding: (individuals x loci) 2-D mesh over ICI.
+"""Device-mesh sharding: (individuals x loci) 2-D device mesh.
 
 individuals = data-parallel axis (children, mating draws, phenotype rows);
 loci = sequence-parallel analog (founder columns, maps, meiosis gathers).

@@ -99,10 +99,10 @@ def make_deme_step(cfg, mesh: Mesh, mig_rate: float = 0.0,
 
     Migration maps the reference's `ras_do_migration`
     (`/root/reference/src/Simulation.cpp:877-989`: counts = round(m*n),
-    sample emigrants without replacement, move them) onto the ICI: each
-    generation, round(mig_rate * n_deme) children sampled without
-    replacement (a loci-invariant permutation, so all loci shards move the
-    same rows) are sent to the next deme and replaced by the previous
+    sample emigrants without replacement, move them) onto the device
+    interconnect: each generation, round(mig_rate * n_deme) children
+    sampled without replacement (a loci-invariant permutation, so all loci
+    shards move the same rows) are sent to the next deme and replaced by the previous
     deme's emigrants — a row-ragged all_to_all specialized to the ring.
     With island-model migration (N_deme * m >> 1) the metapopulation's
     heterozygosity trajectory matches panmictic Ne = n (validated in
@@ -117,7 +117,8 @@ def make_deme_step(cfg, mesh: Mesh, mig_rate: float = 0.0,
     k_ij = round(m_ij * n_deme) children to deme j through ONE
     `all_to_all` over 'ind'; arrivals replace randomly chosen residents.
     Counts are static (compile-time), so the exchange is a fixed-shape
-    (D, k_pad, ...) tensor transpose on the ICI — no host round trips.
+    (D, k_pad, ...) tensor transpose between devices — no host round
+    trips.
     Unbalanced matrices (sum_i k_ij != sum_j k_ij) keep deme sizes fixed by
     construction; the reference's physically-moving semantics are recovered
     exactly when the matrix is balanced (every ring/island matrix is).
@@ -130,11 +131,6 @@ def make_deme_step(cfg, mesh: Mesh, mig_rate: float = 0.0,
         mutation_positions,
     )
     from geneevolve_tpu.dense.step import _sample_gamete_plan
-
-    try:
-        from jax import shard_map  # jax >= 0.5
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
 
     assert isinstance(cfg, PackedConfig)
     ind_n, loci_n = mesh.devices.shape
@@ -150,7 +146,6 @@ def make_deme_step(cfg, mesh: Mesh, mig_rate: float = 0.0,
         mut_cap=cfg.mut_cap,
         ncv=cfg.ncv,
         selection=cfg.selection,
-        use_pallas=cfg.use_pallas,
     )
     reproduce = make_reproduce(cfg_loc)
     dense_loc = cfg_loc.as_dense()
@@ -205,7 +200,10 @@ def make_deme_step(cfg, mesh: Mesh, mig_rate: float = 0.0,
             t = (cvm[:, 0] + cvm[:, 1]).astype(jnp.int32)
             tsum = jax.lax.psum(jnp.sum(t, axis=0), "ind")
             p_glob = tsum.astype(jnp.float32) / (2.0 * n_loc * ind_n)
-            bv = (t.astype(jnp.float32) - 2.0 * p_glob[None, :]) @ state["eff"]
+            bv = jnp.dot(
+                t.astype(jnp.float32) - 2.0 * p_glob[None, :], state["eff"],
+                precision=jax.lax.Precision.HIGHEST,
+            )
             # global standardization too (SV is standardized to global
             # moments in the reference, `Simulation.cpp:3324-3339`)
             N = float(n_loc * ind_n)
@@ -256,7 +254,7 @@ def make_deme_step(cfg, mesh: Mesh, mig_rate: float = 0.0,
         if n_emig:
             # sample emigrants without replacement with a loci-invariant key
             # (k_mig derives from k_ind), so every loci shard moves the same
-            # individuals; ring ppermute over 'ind' rides the ICI
+            # individuals; ring ppermute over 'ind' between devices
             slots = jax.random.permutation(k_mig, n_loc)[:n_emig]
             ring = [(s, (s + 1) % ind_n) for s in range(ind_n)]
             incoming = jax.lax.ppermute(child[slots], "ind", ring)
@@ -301,7 +299,7 @@ def make_deme_step(cfg, mesh: Mesh, mig_rate: float = 0.0,
     specs = state_specs(packed=True)
     # cv_idx/eff replicated; haplotypes block-sharded
     return jax.jit(
-        shard_map(
+        jax.shard_map(
             local_step,
             mesh=mesh,
             in_specs=(specs, P()),
@@ -322,8 +320,8 @@ def routed_fetch(local_rows, global_idx, nloc: int, n_dev: int, cap: int,
     index packets with one all_to_all, serves its local rows, and returns
     them with a second all_to_all. Per-device traffic is
     O(R/D * row_bytes) (R = len(global_idx)) versus the all-gather's
-    O(n * row_bytes) — the VERDICT r4 'children on parent shards'
-    restructure in its two-parent-correct form (a child's father and
+    O(n * row_bytes) — the 'children on parent shards' restructure in
+    its two-parent-correct form (a child's father and
     mother live on different shards with prob. 1 - 1/D, so the row
     exchange, not a child permute, is the irreducible communication).
 
@@ -366,7 +364,7 @@ def make_routed_step(cfg, mesh: Mesh):
     (global selection, any parent reachable from any child), but the
     cross-shard communication is two row-exchange all_to_alls per parent
     set instead of an all-gather of the parent planes — per-device traffic
-    drops by ~D/4. A/B'd against the all-gather form in SCALING_r05.json.
+    drops by ~D/4. Not yet timed against the all-gather form on GPUs.
 
     Children keep their resident shard (child c lives on shard
     c // (n/D)); mates are drawn from the GLOBAL standardized phenotype
@@ -379,14 +377,8 @@ def make_routed_step(cfg, mesh: Mesh):
         cv_child,
         make_reproduce,
         mutation_positions,
-        phenotype_from_cv,
     )
     from geneevolve_tpu.dense.step import _sample_gamete_plan
-
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
 
     assert isinstance(cfg, PackedConfig)
     ind_n, loci_n = mesh.devices.shape
@@ -423,7 +415,10 @@ def make_routed_step(cfg, mesh: Mesh):
             t = (cv[:, 0] + cv[:, 1]).astype(jnp.int32)
             tsum = jax.lax.psum(jnp.sum(t, axis=0), "ind")
             p_glob = tsum.astype(jnp.float32) / (2.0 * cfg.n)
-            bv = (t.astype(jnp.float32) - 2.0 * p_glob[None, :]) @ state["eff"]
+            bv = jnp.dot(
+                t.astype(jnp.float32) - 2.0 * p_glob[None, :], state["eff"],
+                precision=jax.lax.Precision.HIGHEST,
+            )
             N = float(cfg.n)
             mu_g = jax.lax.psum(jnp.sum(bv), "ind") / N
             var_g = jax.lax.psum(jnp.sum((bv - mu_g) ** 2), "ind") / N
@@ -486,7 +481,7 @@ def make_routed_step(cfg, mesh: Mesh):
 
     specs = state_specs(True)
     return jax.jit(
-        shard_map(
+        jax.shard_map(
             local_step,
             mesh=mesh,
             in_specs=(specs, P()),

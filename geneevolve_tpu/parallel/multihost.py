@@ -1,8 +1,8 @@
 """Multi-host execution support: `jax.distributed` initialization and
 per-host output ownership.
 
-The reference is a single process (`SURVEY.md` §2.4); on a TPU pod each
-host drives its local chips and owns an individuals-slice of every sharded
+The reference is a single process (`SURVEY.md` §2.4); on a multi-host
+cluster each host drives its local devices and owns an individuals-slice of every sharded
 array. This module provides:
 
 - `maybe_init_distributed()`: initialize `jax.distributed` from standard

@@ -1,5 +1,5 @@
 """Dense-engine unit tests: meiosis phase algebra, mutation bounds, step
-shapes, Pallas kernel (interpreter mode), and sharding invariance."""
+shapes and sharding invariance."""
 
 import jax
 import jax.numpy as jnp
@@ -106,30 +106,6 @@ def test_phenotype_additive_centering():
     assert bv.shape == (cfg.n,)
     # dosages are centered by 2p, so breeding values are mean-~0
     assert abs(float(jnp.mean(bv))) < 1e-3 * cfg.ncv
-
-
-def test_pallas_kernel_interpret_matches_oracle():
-    from geneevolve_tpu.ops import meiosis_pallas as mp
-    from jax.experimental.pallas import tpu as pltpu
-
-    cfg = DenseConfig(n=6, m=2 * mp.BLOCK_M, n_chr=2, xo_cap=4)
-    state = init_state(jax.random.key(0), cfg)
-    hapA, hapB = state["hapA"], state["hapB"]
-    k = jax.random.key(5)
-    kf, km, kp, kq = jax.random.split(k, 4)
-    fathers = jax.random.randint(kf, (cfg.n,), 0, cfg.n)
-    mothers = jax.random.randint(km, (cfg.n,), 0, cfg.n)
-    xo_p, st_p, _ = _sample_gamete_plan(kp, cfg, cfg.n)
-    xo_m, st_m, _ = _sample_gamete_plan(kq, cfg, cfg.n)
-    refA = _meiose_xla(hapA, hapB, fathers, xo_p, st_p, cfg)
-    refB = _meiose_xla(hapA, hapB, mothers, xo_m, st_m, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        outA, outB = mp.meiose_planes_pallas(
-            hapA, hapB, fathers, mothers, xo_p, st_p, xo_m, st_m,
-            n_chr=cfg.n_chr,
-        )
-    np.testing.assert_array_equal(np.asarray(refA), np.asarray(outA))
-    np.testing.assert_array_equal(np.asarray(refB), np.asarray(outB))
 
 
 def test_sharded_step_matches_single_device():

@@ -310,3 +310,41 @@ def test_resident_cv_hbm_budget_gate(mini_scenario, tmp_path, monkeypatch):
         d1 / "out.info.pop1.gen4.txt", d2 / "out.info.pop1.gen4.txt",
         shallow=False,
     )
+
+
+@pytest.mark.parametrize("stats,env,want", [
+    ({"bytes_limit": 80 * 2**30, "bytes_in_use": 1}, None, 80 * 2**30),
+    (None, None, None),  # the CPU backend reports no memory stats
+    ({"bytes_in_use": 1}, None, None),
+    (None, "4096", 4096),  # GE_HBM_BYTES overrides the device
+])
+def test_device_memory_budget(monkeypatch, stats, env, want):
+    from geneevolve_tpu.core.engine import device_memory_budget
+
+    if env is None:
+        monkeypatch.delenv("GE_HBM_BYTES", raising=False)
+    else:
+        monkeypatch.setenv("GE_HBM_BYTES", env)
+    assert device_memory_budget(stats) == want
+
+
+@pytest.mark.parametrize("limit,resident", [
+    (None, True), (4096, False), (80 * 2**30, True),
+])
+def test_resident_cv_gate_from_device_limit(mini_scenario, tmp_path,
+                                            monkeypatch, limit, resident):
+    """The residency decision follows the device's bytes_limit; with no
+    memory stats (CPU) no gate applies."""
+    from geneevolve_tpu.core import engine
+
+    monkeypatch.delenv("GE_HBM_BYTES", raising=False)
+    monkeypatch.setattr(engine, "device_memory_budget", lambda stats: limit)
+    cfg = parse_args([
+        "--file_gen_info", str(mini_scenario / "popinfo.txt"),
+        "--file_hap_name", str(mini_scenario / "hap_address.txt"),
+        "--file_recom_map", str(mini_scenario / "rmap.txt"),
+        "--file_cv_info", str(mini_scenario / "cv.info"),
+        "--file_cvs", str(mini_scenario / "cv_address.txt"),
+        "--prefix", str(tmp_path / "out"),
+    ])
+    assert Simulation(cfg, verbose=False).resident_cv == resident

@@ -133,3 +133,96 @@ def test_split_ledger_paints_identically_to_merged(tmp_path, mini_scenario):
     assert (outs["merged"] / "out.pop1.summary").read_text() == (
         outs["split"] / "out.pop1.summary"
     ).read_text()
+
+
+def _write_interval_row_loop(sim, gen, path_of):
+    """The per-row writer the vectorized `output.write_interval` replaced,
+    kept as its reference."""
+    from geneevolve_tpu.core import segments
+
+    offsets = np.array([p.hap_offset for p in sim.pops])
+    big = int(segments._big())
+    for p in sim.pops:
+        st = p.state
+        for ic, chrom in enumerate(sim.chrs):
+            seg_st = np.asarray(st.seg_st[ic])
+            seg_hap = np.asarray(st.seg_hap[ic])
+            with open(path_of(p, chrom), "w") as f:
+                f.write("h_ID chr hap st en hap_index gen0_indv root_pop\n")
+                for i in range(st.n):
+                    for h in range(2):
+                        sts = seg_st[i, h]
+                        k = int((sts < big).sum())
+                        ens = np.append(sts[1:k], p.maps[ic].chr_end)
+                        for s in range(k):
+                            ghap = int(seg_hap[i, h, s])
+                            rp = int(np.searchsorted(offsets, ghap, "right") - 1)
+                            local = ghap - offsets[rp]
+                            indv = sim.pops[rp].indv_ids[local // 2]
+                            f.write(
+                                f"{st.ids[i] + 1} {chrom} {h} {sts[s]} "
+                                f"{ens[s]} {local + 1} {indv}.{local % 2 + 1} "
+                                f"{rp + 1}\n"
+                            )
+
+
+def test_interval_writer_matches_row_loop(gen1_run, tmp_path, monkeypatch):
+    """The block-formatted .int writer is byte-identical to the per-row
+    loop, including across block boundaries."""
+    from geneevolve_tpu.core import output
+
+    sim, out = gen1_run
+    monkeypatch.setattr(output, "_INT_ROWS", 7)  # several blocks per chr
+    monkeypatch.setattr(sim.cfg, "prefix", str(tmp_path / "v"))
+    output.write_interval(sim, 1)
+    _write_interval_row_loop(
+        sim, 1, lambda p, c: tmp_path / f"ref.pop{p.index + 1}.chr{c}.int"
+    )
+    for c in sim.chrs:
+        got = (tmp_path / f"v.pop1.gen1.chr{c}.int").read_bytes()
+        want = (tmp_path / f"ref.pop1.chr{c}.int").read_bytes()
+        assert got == want
+        assert got == (out / f"o.pop1.gen1.chr{c}.int").read_bytes()
+
+
+def test_interval_writer_reads_ledger_one_thread_at_a_time(
+    gen1_run, tmp_path, monkeypatch
+):
+    """The writer threads never read the device ledger at the same time (on
+    a sharded ledger each read is a program with collectives, and launches
+    from two threads at once can deadlock them); the files are unchanged."""
+    import dataclasses
+    import threading
+    import time
+
+    from geneevolve_tpu.core import output
+
+    sim, out = gen1_run
+    p = sim.pops[0]
+    lock, active, most = threading.Lock(), [0], [0]
+
+    class Metered:
+        def __init__(self, arr):
+            self.arr = arr
+
+        def __getitem__(self, idx):
+            with lock:
+                active[0] += 1
+                most[0] = max(most[0], active[0])
+            time.sleep(0.005)  # widen the window two readers could share
+            try:
+                return self.arr[idx]
+            finally:
+                with lock:
+                    active[0] -= 1
+
+    st = dataclasses.replace(p.state, seg_st=Metered(p.state.seg_st),
+                             seg_hap=Metered(p.state.seg_hap))
+    monkeypatch.setattr(p, "state", st)
+    monkeypatch.setattr(output, "_INT_ROWS", 7)
+    monkeypatch.setattr(sim.cfg, "prefix", str(tmp_path / "m"))
+    output.write_interval(sim, 1)
+    assert most[0] == 1
+    for c in sim.chrs:
+        assert (tmp_path / f"m.pop1.gen1.chr{c}.int").read_bytes() == (
+            out / f"o.pop1.gen1.chr{c}.int").read_bytes()

@@ -1,4 +1,4 @@
-"""Bit-packed engine: equality with the byte engine, and kernel parity."""
+"""Bit-packed engine: equality with the byte engine."""
 
 import jax
 import jax.numpy as jnp
@@ -143,53 +143,35 @@ def test_mutation_positions_apply_as_single_bit_flips():
     np.testing.assert_array_equal(after, want)
 
 
-def test_packed_pallas_interpret_matches_xla():
-    from geneevolve_tpu.ops import meiosis_packed_pallas as mpp
-    from jax.experimental.pallas import tpu as pltpu
-
+@pytest.mark.parametrize("chr_len", [32 * 3, 32 * 129, 14_592])
+def test_packed_meiosis_word_aligned_chromosomes(chr_len):
+    """Chromosomes padded to whole 32-locus words only (the one padding
+    unit): packed meiosis + mutation flips equal the byte engine at
+    chromosome lengths that are multiples of 32 but not of 4096."""
     pcfg = pk.PackedConfig(
-        n=6, m=2 * 32 * 128 * 2, n_chr=2, xo_cap=4, mut_rate=1.0, mut_cap=3
+        n=12, m=2 * chr_len, n_chr=2, xo_cap=5, mut_rate=1.5, mut_cap=4,
+        ncv=8,
     )
     dcfg = pcfg.as_dense()
-    state = pk.init_state(jax.random.key(0), pcfg)
-    hap = state["hap"]
-    kf, km, kp, kq, ku = jax.random.split(jax.random.key(5), 5)
-    fathers = jax.random.randint(kf, (pcfg.n,), 0, pcfg.n)
-    mothers = jax.random.randint(km, (pcfg.n,), 0, pcfg.n)
-    xo_p, st_p, _ = _sample_gamete_plan(kp, dcfg, pcfg.n)
-    xo_m, st_m, _ = _sample_gamete_plan(kq, dcfg, pcfg.n)
-    mu = jnp.stack(
-        [
-            pk.mutation_positions(ku, pcfg.n, pcfg)[0],
-            pk.mutation_positions(jax.random.fold_in(ku, 1), pcfg.n, pcfg)[0],
-        ],
-        axis=1,
+    key = jax.random.key(chr_len)
+    dstate = dense_init(key, dcfg)
+    pstate = pk.init_state(key, pcfg)
+    kf, kp, ku = jax.random.split(jax.random.key(9), 3)
+    parent = jax.random.randint(kf, (pcfg.n,), 0, pcfg.n)
+    xo, st, _ = _sample_gamete_plan(kp, dcfg, pcfg.n)
+    mu, _ = pk.mutation_positions(ku, pcfg.n, pcfg)
+    want = np.asarray(
+        _meiose_xla(dstate["hapA"], dstate["hapB"], parent, xo, st, dcfg)
+    ).copy()
+    for i, row in enumerate(np.asarray(mu)):
+        for p in row[row < pcfg.m]:
+            want[i, p] ^= 1
+    got = pk.apply_mutations_packed(
+        pk.meiose_packed_xla(pstate["hap"], parent, xo, st, pcfg), mu
     )
-    refA = pk.apply_mutations_packed(
-        pk.meiose_packed_xla(hap, fathers, xo_p, st_p, pcfg), mu[:, 0]
+    np.testing.assert_array_equal(
+        np.asarray(pk.unpack_bits(got, pcfg.m)), want
     )
-    refB = pk.apply_mutations_packed(
-        pk.meiose_packed_xla(hap, mothers, xo_m, st_m, pcfg), mu[:, 1]
-    )
-    with pltpu.force_tpu_interpret_mode():
-        out = mpp.meiose_packed_pallas(
-            hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
-            n_chr=pcfg.n_chr, chr_len=pcfg.chr_len,
-        )
-    np.testing.assert_array_equal(np.asarray(refA), np.asarray(out[:, 0]))
-    np.testing.assert_array_equal(np.asarray(refB), np.asarray(out[:, 1]))
-
-
-def test_pick_block_rows():
-    from geneevolve_tpu.ops.meiosis_packed_pallas import pick_block_rows
-
-    # whole chromosomes per block when they fit
-    assert pick_block_rows(8, 8, max_rows=64) == 64
-    assert pick_block_rows(8, 8, max_rows=32) == 32
-    assert pick_block_rows(6, 8, max_rows=32) == 24
-    # sub-chromosome power-of-two splits when one chromosome exceeds the cap
-    assert pick_block_rows(2, 1024, max_rows=512) == 512
-    assert pick_block_rows(1, 96, max_rows=64) == 48
 
 
 def test_resident_cv_matrix_tracks_planes():
@@ -211,3 +193,18 @@ def test_resident_cv_matrix_tracks_planes():
             np.asarray(pk.cv_from_planes(state["hap"], state["cv_idx"])),
             err_msg=f"generation {g}",
         )
+
+
+def test_phenotype_product_full_precision():
+    """The selection phenotype's product asks for full float32 precision
+    (no TF32 on a GPU's matrix unit) and matches float64 to 1e-5 of its
+    largest value."""
+    rng = np.random.default_rng(0)
+    cv = (rng.random((3000, 2, 500)) < rng.random(500)).astype(np.uint8)
+    eff = rng.normal(size=500).astype(np.float32)
+    jaxpr = str(jax.make_jaxpr(pk.phenotype_from_cv)(cv, eff))
+    assert "precision=(Precision.HIGHEST, Precision.HIGHEST)" in jaxpr
+    got = np.asarray(pk.phenotype_from_cv(jnp.asarray(cv), jnp.asarray(eff)))
+    t = cv[:, 0].astype(np.float64) + cv[:, 1]
+    want = (t - t.mean(axis=0)) @ eff.astype(np.float64)
+    assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))

@@ -11,10 +11,7 @@ from geneevolve_tpu.dense.packed import PackedConfig, init_state, unpack_bits
 from geneevolve_tpu.parallel import make_mesh, shard_state
 from geneevolve_tpu.parallel.mesh import make_routed_step, routed_fetch
 
-try:
-    from jax import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 

@@ -269,36 +269,38 @@ def test_cdf_grid_flat_runs_exact():
     assert set(np.unique(v // width)).issubset(set(live.tolist()))
 
 
-def test_cdf_grid_real_recom_map():
-    """The shipped Recom.Map.b37 chromosomes (50 Kb bins, long flat cum
-    runs) must build a usable grid — 8/22 of them previously exceeded the
-    window cap before dedup — and match searchsorted bit-exactly."""
-    import zipfile
+def _map_with_dead_runs(rng, nbins):
+    """A 50 kb-bin recombination map shaped like the human b37 maps:
+    gamma-distributed bin masses with megabase runs of zero-mass bins (a
+    centromere-sized gap of 600 bins plus scattered shorter ones) — runs
+    that inflate an undeduplicated grid cell's span far past W_MAX."""
+    mass = rng.gamma(0.5, 1.0, size=nbins) * 0.0013 / 0.5
+    mass[0] = 0.0
+    mass[nbins // 3 : nbins // 3 + 600] = 0.0  # centromere
+    for start in rng.choice(nbins - 300, 12, replace=False):
+        mass[start : start + rng.integers(20, 300)] = 0.0
+    return mass
 
-    zf = zipfile.ZipFile("/root/reference/Examples.zip")
-    name = next(
-        n for n in zf.namelist() if n.endswith("Recom.Map.b37.50KbDiff")
-    )
-    rows = [
-        ln.split()
-        for ln in zf.read(name).decode().splitlines()[1:]
-        if ln.strip()
-    ]
-    chrs = {}
-    for chrom, bp_, cm in rows:
-        chrs.setdefault(int(chrom), []).append((int(float(bp_)), float(cm)))
-    # chr 2 is one of the maps whose raw window span blows past the cap
-    for chrom in (1, 2):
-        data = np.array(chrs[chrom])
-        prob = np.maximum(np.diff(data[:, 1], prepend=data[0, 1]), 0) / 100
+
+def test_cdf_grid_real_recom_map():
+    """Maps shaped like the real Recom.Map.b37 chromosomes — long flat cum
+    runs of zero-mass bins — must build a usable grid thanks to run-length
+    dedup, and match searchsorted bit-exactly; no sample may land inside a
+    zero-mass bin."""
+    rng = np.random.default_rng(21)
+    width = 50_000
+    for nbins in (4980, 4860):  # chr1- and chr2-sized maps
+        prob = _map_with_dead_runs(rng, nbins)
         cum_np = np.cumsum(prob.astype(np.float32))
+        runs = np.diff(np.flatnonzero(np.diff(cum_np) != 0))
+        assert runs.max() > 250  # raw spans far beyond W_MAX
         table, W = segments.build_cdf_grid(cum_np)
-        assert table is not None and 0 < W <= 13, f"chr{chrom}: W={W}"
-        bp = jnp.asarray(data[:, 0].astype(np.int64), segments.pos_dtype())
+        assert table is not None and 0 < W <= 13, f"W={W}"
+        bp_np = np.arange(nbins, dtype=np.int64) * width
+        bp = jnp.asarray(bp_np, segments.pos_dtype())
         cum = jnp.asarray(cum_np)
         lam = float(cum_np[-1])
-        width = int(data[1, 0] - data[0, 0])
-        key = jax.random.key(13 + chrom)
+        key = jax.random.key(13 + nbins)
         n, cap = 3000, 10
         ref = segments.sample_point_process(
             key, n, cap, cum, lam, bp, width, False
@@ -308,16 +310,72 @@ def test_cdf_grid_real_recom_map():
             grid=jnp.asarray(table), grid_w=W,
         )
         np.testing.assert_array_equal(
-            np.asarray(got), np.asarray(ref), err_msg=f"chr{chrom}"
+            np.asarray(got), np.asarray(ref), err_msg=f"nbins={nbins}"
         )
-        # no sample inside a zero-mass bin
         pos = np.asarray(got)
         v = pos[pos < BIG]
-        bins = np.minimum(
-            np.searchsorted(data[:, 0], v, side="right") - 1,
-            len(prob) - 1,
-        )
+        bins = np.minimum(np.searchsorted(bp_np, v, side="right") - 1,
+                          nbins - 1)
         assert np.all(prob[bins] > 0)
+
+
+def _grid_cases():
+    rng = np.random.default_rng(0)
+    cases = {}
+    # engine CDFs are padded to a common K with their final value
+    cases["padded_tail"] = (
+        np.concatenate([np.cumsum(np.ones(100, np.float32)),
+                        np.full(28, 100.0, np.float32)]),
+        np.array([0.0, 0.5, 1.0, 99.0, 99.5, 99.999], np.float32),
+    )
+    cases["single_bin"] = (np.array([2.5], np.float32),
+                           np.array([0.0, 1.0, 2.4], np.float32))
+    cum = np.cumsum(rng.exponential(size=300).astype(np.float32))
+    cases["boundary_u"] = (cum, np.concatenate([[0.0], cum[:-1]]))
+    for K in (7, 1000, 5120):
+        mass = rng.exponential(size=K).astype(np.float32)
+        mass[rng.random(K) < 0.3] = 0.0  # flat runs
+        mass[0] = 1.0
+        cum = np.cumsum(mass, dtype=np.float32)
+        u = rng.uniform(0, float(cum[-1]), size=4096).astype(np.float32)
+        cases[f"flat_runs_K{K}"] = (
+            cum, np.concatenate([u, cum[:64][cum[:64] < cum[-1]]])
+        )
+    return cases
+
+
+@pytest.mark.parametrize("case", sorted(_grid_cases()))
+def test_cdf_grid_bins_match_searchsorted(case):
+    """`cdf_grid_bins` (the samplers' XLA inverse-CDF) equals
+    min(np.searchsorted(cum, u, 'right'), K-1) for u in [0, total)."""
+    cum, u = _grid_cases()[case]
+    table, W = segments.build_cdf_grid(cum)
+    assert table is not None
+    got = np.asarray(segments.cdf_grid_bins(
+        jnp.asarray(u), jnp.asarray(cum), jnp.asarray(table), W
+    ))
+    want = np.minimum(np.searchsorted(cum, u, side="right"), len(cum) - 1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sampler_grid_path_chunked_bit_identical():
+    """Above 2^20 probes the grid path runs in lax.map chunks; the draws
+    stay bit-identical to the searchsorted path."""
+    rng = np.random.default_rng(5)
+    nbins, width = 3000, 50_000
+    prob = _map_with_dead_runs(rng, nbins)
+    cum_np = np.cumsum(prob.astype(np.float32))
+    table, W = segments.build_cdf_grid(cum_np)
+    bp = (jnp.arange(nbins) * width).astype(segments.pos_dtype())
+    cum = jnp.asarray(cum_np)
+    n, cap = 90_000, 12  # 1.08M probes > 2^20
+    key = jax.random.key(2)
+    args = (key, n, cap, cum, float(cum_np[-1]), bp, width, True)
+    ref = segments.sample_point_process(*args)
+    got = segments.sample_point_process(
+        *args, grid=jnp.asarray(table), grid_w=W
+    )
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 def test_resident_cv_matches_gather_path(tmp_path, monkeypatch):

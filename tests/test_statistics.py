@@ -250,7 +250,7 @@ def test_deme_migration_matches_panmictic_heterozygosity():
     island model, F_ST ~= 1/(1+4Nm) small); with mig_rate=0 each deme
     drifts at its own Ne = N/D, decaying D times faster. Mirrors the
     reference's migration semantics (`ras_do_migration`,
-    Simulation.cpp:877-989) on the ICI ppermute path."""
+    Simulation.cpp:877-989) on the ppermute path."""
     from geneevolve_tpu.dense import packed as pk
     from geneevolve_tpu.parallel import mesh as pmesh
 
